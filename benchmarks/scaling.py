@@ -3,9 +3,10 @@
 Usage: python benchmarks/scaling.py [H W reps]
        BENCH_CPU_DEVICES=8 python benchmarks/scaling.py   # virtual CPU mesh
 
-On a single-chip box this exercises the sharding machinery over virtual CPU
-devices (functional scaling; CPU cores are shared so speedup saturates).  On
-a real multi-chip slice the same script measures true per-chip scaling.
+Without BENCH_CPU_DEVICES it runs on the GPUs JAX finds (one process
+drives every card of the host) and fails if there are none.  With it, the
+script exercises the sharding machinery over virtual CPU devices: a
+functional check whose times are CPU times, not device metrics.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ import jax  # noqa: E402
 
 if ndev:
     jax.config.update("jax_platforms", "cpu")
+elif jax.devices()[0].platform != "gpu":
+    sys.exit(f"scaling.py measures GPUs; JAX found "
+             f"{jax.devices()[0].platform!r} (BENCH_CPU_DEVICES=n for a "
+             f"virtual CPU mesh)")
 
 from jpeg_tpu import Configuration, QuantizationMethod, parallel  # noqa: E402
 
@@ -43,7 +48,9 @@ def main() -> None:
 
     total = len(jax.devices())
     sizes = sorted({n for n in (1, 2, 4, 8, 16, total) if n <= total})
-    print(f"backend={jax.default_backend()} devices={total} plane={h}x{w}")
+    print(f"backend={jax.default_backend()} "
+          f"kind={jax.devices()[0].device_kind} devices={total} "
+          f"plane={h}x{w}")
     base = None
     for n in sizes:
         mesh = parallel.make_mesh(n)

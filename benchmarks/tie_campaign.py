@@ -1,20 +1,18 @@
-"""f32 cross-path campaign: randomized ragged geometries x quantizers,
-Pallas packed-panel paths and XLA f32 paths vs the independent f64
-oracle under the +-1-at-provable-ties contract (jpeg_tpu/utils/parity.py).
+"""f32 contract campaign: randomized ragged geometries x quantizers, the
+f32 encode and decode programs (x64 off, as in production) vs the
+independent f64 oracle under the +-1-at-provable-ties contract
+(jpeg_tpu/utils/parity.py).
 
 The f64 parity campaign (parity_campaign.py) proves byte parity with the
 live reference in x64 mode; THIS campaign proves the f32 fast path's
-honest contract — every cross-formulation disagreement is a +-1 flip at
-an exact half-integer rounding tie of the f64 value, and both paths match
-the f64 reference everywhere else.  Covers the any-geometry combined
-pr-major decode (ops/band.py combined_p) that round 4 shipped with a
-single drawn input per shape.
+honest contract — every disagreement with the f64 reference is a +-1 flip
+at an exact half-integer rounding tie of the f64 value.
 
 Usage:  JAX_PLATFORMS=cpu python benchmarks/tie_campaign.py [N] [SEED]
 
 Prints one summary line; exit code 0 iff every draw satisfies the
-contract.  Runs on the CPU backend (interpret-mode kernels); the on-chip
-spot checks live in tpu_tests/test_on_device.py.
+contract.  Runs on the CPU backend; chip_smoke.py checks the same contract
+on the GPU at full image sizes.
 """
 import os
 import sys
@@ -63,25 +61,19 @@ def main(n=200, seed=20260820):
         desc = (f"w={cfg.width} h={cfg.height} bs={cfg.block_size} "
                 f"d={cfg.dct_size} {cfg.transform} {cfg.quantization.name}")
         try:
-            f_xla = jax.jit(band_ops.make_encode(key, "float32", False))
-            f_pal = jax.jit(band_ops.make_encode(key, "float32", True))
-            g_xla = jax.jit(band_ops.make_decode(key, "float32", False))
-            g_pal = jax.jit(band_ops.make_decode(key, "float32", True))
-            lv_x = np.asarray(f_xla(band))
-            lv_p = np.asarray(f_pal(band))
+            f = jax.jit(band_ops.make_encode(key, "float32"))
+            g = jax.jit(band_ops.make_decode(key, "float32"))
+            lv = np.asarray(f(band))
             lv_ref, et = PAR.encode_reference_and_ties(cfg, band)
-            PAR.assert_tie_equal(lv_x, lv_ref, et, "encode xla vs f64")
-            PAR.assert_tie_equal(lv_p, lv_ref, et, "encode pallas vs f64")
-            px_x = np.asarray(g_xla(lv_x))
-            px_p = np.asarray(g_pal(lv_x))
-            px_ref, dt = PAR.decode_reference_and_ties(cfg, lv_x)
-            PAR.assert_tie_equal(px_x, px_ref, dt, "decode xla vs f64")
-            PAR.assert_tie_equal(px_p, px_ref, dt, "decode pallas vs f64")
+            PAR.assert_tie_equal(lv, lv_ref, et, "encode f32 vs f64")
+            px = np.asarray(g(lv))
+            px_ref, dt = PAR.decode_reference_and_ties(cfg, lv)
+            PAR.assert_tie_equal(px, px_ref, dt, "decode f32 vs f64")
         except AssertionError as e:
             print(f"FAIL draw {i} ({desc}): {e}")
             return 1
-        flips_enc += int((lv_p != lv_x).any())
-        flips_dec += int((px_p != px_x).any())
+        flips_enc += int((lv != lv_ref).any())
+        flips_dec += int((px != px_ref).any())
         if (i + 1) % 25 == 0:
             print(f"  {i + 1}/{n} ...", flush=True)
     print(f"{n}/{n} draws satisfy the f32 tie contract "

@@ -1,15 +1,15 @@
-"""jpeg_tpu — a TPU-native JPEG-style image codec (JAX / XLA / Pallas).
+"""jpeg_tpu — a JPEG-style image codec on the GPU (JAX / XLA).
 
 A from-scratch re-design of the reference educational JPEG codec
 (X-rayLaser/Implementing-JPEG-compression) with the same wire format and
-behavior, built TPU-first:
+behavior, run as device programs:
 
   * The whole per-band transform path (pad, subsample, blockwise DCT/DFT,
     quantize, zigzag) is one jitted function whose hot op is a single
-    ``(num_blocks, d*d) @ (d*d, d*d)`` MXU matmul (see ops/transform.py).
-  * Entropy coding is a vectorized prefix-sum bit packer (NumPy) with a C++
-    native fast path, plus a device-side Pallas/scan encoder for the
-    distributed pipeline.
+    ``(num_blocks, d*d) @ (d*d, d*d)`` matmul (see ops/transform.py).
+  * Entropy coding runs on the device (prefix sums + scatter encode,
+    lock-step decode; entropy/device_codec.py) or on the host (vectorized
+    NumPy, C++ fast path); utils/device.py places it per platform.
   * Scaling is mesh-native: batches of images shard over a ``data`` axis and
     single large images tile row-band-wise over a ``rows`` axis with the
     per-band bitstreams stitched via length all-gather (see parallel/).

@@ -2,7 +2,7 @@
 
 Same flags and defaults (reference compress.py:24-62: block_size 4,
 dct_size 8, transform DCT, quantization 'qtable', qkeep 2, qdivisor 40),
-plus TPU execution flags.
+plus execution flags (dtype, device mesh).
 """
 from __future__ import annotations
 

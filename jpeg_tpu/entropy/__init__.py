@@ -78,15 +78,13 @@ def scan_offsets(data: bytes, num_blocks: int, L: int) -> np.ndarray:
 
     The serial O(bytes) prelude to block-parallel decode (device bit parsing
     consumes the offsets).  C++ scanner when available, else the pure-Python
-    word-window scanner — so the TPU decode path works without a compiler.
+    word-window scanner — so device decode works without a compiler.
     """
     from .device_scan import scan_mode
-    if scan_mode(len(data)) == "device":
-        # Policy-selected (entropy/device_scan.py:scan_mode): speculative
-        # per-byte parse + orbit chase on the accelerator — removes the
-        # host from the decode path (identical results/errors).  The auto
-        # policy picks this only when no C++ scanner exists; JPEG_TPU_SCAN
-        # =device forces it.
+    if scan_mode() == "device":
+        # JPEG_TPU_SCAN=device (entropy/device_scan.py:scan_mode):
+        # speculative per-byte parse + orbit chase on the accelerator
+        # (identical results/errors).
         from .device_scan import scan_offsets_hybrid
         return scan_offsets_hybrid(data, num_blocks, L)
     nat = _get_native()

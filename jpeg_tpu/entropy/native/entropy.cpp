@@ -131,7 +131,7 @@ int64_t jt_encode_bound(int64_t n_blocks, int64_t L) {
 // Scan block boundaries only: record each block's start byte offset into
 // starts[n_blocks], validating the stream but not materializing levels.
 // This is the only serial part of decode; the per-coefficient work can then
-// run data-parallel per block (e.g. on the TPU, entropy/device_codec.py).
+// run data-parallel per block (on the device, entropy/device_codec.py).
 // Returns bytes consumed or <0 (same error codes as jt_decode).
 int64_t jt_scan_offsets(const uint8_t* data, int64_t n_bytes,
                         int32_t* starts, int64_t n_blocks, int64_t L) {

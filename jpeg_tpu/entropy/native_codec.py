@@ -1,8 +1,9 @@
 """ctypes bindings for the C++ entropy codec (built lazily with g++).
 
-pybind11 isn't available in this image, so the native codec exposes a small
-C ABI (see native/entropy.cpp) loaded through ctypes.  The shared object is
-compiled on first use and cached next to the source, keyed by a source hash.
+The native codec exposes a small C ABI (see native/entropy.cpp) loaded
+through ctypes.  The shared object is compiled from the committed source on
+first use into the checkout's gitignored ``build/`` directory, keyed by a
+source hash.
 """
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ import hashlib
 import os
 import subprocess
 import sys
-import tempfile
 from typing import Optional
 
 import numpy as np
@@ -19,6 +19,8 @@ import numpy as np
 from ..config import BadRleCodeError, BadStreamError
 
 _SRC = os.path.join(os.path.dirname(__file__), "native", "entropy.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build")
 _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
@@ -26,11 +28,8 @@ _build_error: Optional[str] = None
 def _so_path() -> str:
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache_dir = os.environ.get(
-        "JPEG_TPU_CACHE",
-        os.path.join(tempfile.gettempdir(), "jpeg_tpu_native"))
-    os.makedirs(cache_dir, exist_ok=True)
-    return os.path.join(cache_dir, f"entropy_{digest}.so")
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    return os.path.join(_BUILD_DIR, f"entropy_{digest}.so")
 
 
 def _build() -> Optional[ctypes.CDLL]:

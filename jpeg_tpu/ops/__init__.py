@@ -6,8 +6,7 @@ Submodules:
                  classic DCT/Zigzag drop-in classes
   quantize       the four quantizer semantics (functional + classic classes)
   band           the fused per-band pixels<->levels pipeline
-  pallas_kernels Mosaic kernels (MXU-packed matmul + quantizer epilogue)
 """
-from . import band, blocks, pallas_kernels, quantize, transform
+from . import band, blocks, quantize, transform
 
-__all__ = ["band", "blocks", "pallas_kernels", "quantize", "transform"]
+__all__ = ["band", "blocks", "quantize", "transform"]

@@ -1,12 +1,12 @@
 """Fused per-band coefficient pipeline (pixels <-> quantized zigzag levels).
 
-This is the TPU compute path: everything between raw pixels and integer
-entropy-coder levels runs as ONE jitted function per direction —
+Everything between raw pixels and integer entropy-coder levels runs as
+ONE jitted function per direction —
 pad -> subsample -> pad -> blockify -> (DCT+zigzag matmul) -> quantize ->
 int cast, and its exact inverse.  It replaces reference pipeline steps 0-6
 (pipeline/padding.py, subsampling.py, dct_padding.py, normalization.py,
 basis_change.py, quantization.py, zigzag_order.py), whose per-block Python
-loops become batched tensor ops that XLA fuses around a single MXU matmul.
+loops become batched tensor ops that XLA fuses around a single matmul.
 
 Functions are cached per static config signature so repeated calls reuse the
 compiled executable.
@@ -24,25 +24,10 @@ from ..config import Configuration, QuantizationMethod
 from . import blocks as B
 from . import quantize as Q
 from . import transform as T
-from . import pallas_kernels as PK
-
-
-def use_pallas_default(transform: str = "DCT") -> bool:
-    """Fast path: Mosaic kernels when running on a real TPU backend in f32.
-
-    Parity (x64) mode and non-TPU backends use the XLA path.  Both DCT and
-    DFT modes are fused matmuls (ops/transform.py), so both take the Pallas
-    kernels.  Env override: JPEG_TPU_NO_PALLAS=1 disables.
-    """
-    import os
-    if os.environ.get("JPEG_TPU_NO_PALLAS"):
-        return False
-    return (transform in ("DCT", "DFT") and not jax.config.jax_enable_x64
-            and jax.default_backend() == "tpu")
 
 
 def default_dtype():
-    """f64 when x64 is enabled (bit-parity mode on CPU), else f32 (TPU)."""
+    """f64 when x64 is enabled (bit-parity mode on CPU), else f32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -60,35 +45,19 @@ def _check_dtype_supported(dtype_name: str) -> None:
             'jax.config.update("jax_enable_x64", True) on the CPU backend')
 
 
-def make_encode(key: Tuple, dtype_name: str,
-                use_pallas: bool = False) -> Callable:
+def make_encode(key: Tuple, dtype_name: str) -> Callable:
     """Pure (unjitted) band -> levels function for a static config key."""
     _check_dtype_supported(dtype_name)
     h, w, bs, d, transform, qname, qparams = key
     method = QuantizationMethod(qname, **dict(qparams))
     dtype = jnp.dtype(dtype_name)
     L = d * d
-    use_pallas = use_pallas and transform in ("DCT", "DFT")
-    if use_pallas:
-        # Pack P blocks per matmul row -> contraction dim P*L fills the MXU.
-        # DCT and DFT differ only in the operator matrix (both fused
-        # transform+zigzag matmuls, ops/transform.py).
-        pack = PK.pack_factor(L)
-        enc_op = (T.encode_operator(d) if transform == "DCT"
-                  else T.dft_encode_operator(d))
-        op_t = np.kron(np.eye(pack), enc_op.T)
-        mul_v, div_v, mask_v = (np.tile(v, pack)
-                                for v in Q.epilogue_vectors(method, d))
     # Divisible geometry (no edge padding anywhere): the WHOLE f32
     # coefficient path collapses into one dot_general with the combined
     # subsample+transform+zigzag operator, contracting the (r, c) axes of
-    # the plane's natural (NV, D, NH, D) view.  XLA fuses the f32 cast and
-    # BOTH relayouts (blockify in, row-major out) into the dot's operand
-    # and result reads — measured 2.8x over the explicit cast -> blockify
-    # -> matmul chain at 4.2 MP (benchmarks/probe_coeff.py), bit-identical
-    # output.  Both the Pallas and XLA variants of this path are this same
-    # dot (the Mosaic kernel cannot see past an XLA-side relayout, so it
-    # has no edge here).  Padded shapes keep the two-step chain
+    # the plane's natural (NV, D, NH, D) view, so XLA can fuse the f32 cast
+    # and both relayouts (blockify in, row-major out) into the dot's
+    # operand and result reads.  Padded shapes keep the two-step chain
     # (pixel-domain edge replication does not commute with mean-pooling at
     # the seam).
     divisible = (h % bs == 0 and w % bs == 0
@@ -97,17 +66,13 @@ def make_encode(key: Tuple, dtype_name: str,
                 and dtype != jnp.float64)
     # DCT factors separably ((A@S) kron (A@S)), so the combined map runs as
     # two chained single-axis contractions that never materialize the
-    # blockify transpose (7-8x over the joint dot, benchmarks/
-    # probe_coeff2.py).  DFT's real-part operator is a difference of two
+    # blockify transpose.  DFT's real-part operator is a difference of two
     # kron products, so it keeps the joint dot.
     separable = combined and transform == "DCT"
     # Non-divisible DCT f32: subsample + DCT-pad in XLA first (the padded
     # subsampled plane is ALWAYS d-divisible), then the SAME separable
-    # two-stage contraction with the bs = 1 factor.  The old fallback
-    # (blockify + joint per-block matmul) measured 37.6 ms vs ~1 ms for
-    # the d=24/bs=2 BASELINE config 3 on a 2048x2048 image (r4 d24
-    # capture) — the blockify transpose plus the vmapped batched dot lose
-    # the MXU layout exactly as benchmarks/probes/probe_coeff2.py showed.
+    # two-stage contraction with the bs = 1 factor instead of a blockify
+    # transpose plus a vmapped per-block matmul.
     sep_pad = (transform == "DCT" and not combined
                and dtype != jnp.float64)
     if separable or sep_pad:
@@ -119,14 +84,14 @@ def make_encode(key: Tuple, dtype_name: str,
     def sep2(x, width):
         """Separable DCT+zigzag of an f32 plane whose last two dims are
         multiples of ``fac.shape[1]``/``d``; batch-polymorphic — the
-        leading reshape merges any band batch into the row-group axis,
-        which is WHY this path is fast (a vmapped/batched dot_general
-        loses the layout win: 8x slower, probe_coeff2.py enc_g)."""
+        leading reshape merges any band batch into the row-group axis, so
+        a batch runs as one unbatched contraction instead of a vmapped
+        (batched) dot_general."""
         D2 = fac.shape[1]
         ft = jnp.asarray(fac.T, jnp.float32)                 # (D2, d)
         xr = x.reshape(-1, D2, width)
         # stage 1: contract the D2 pixel-row axis; the full image width
-        # stays minor/contiguous so XLA feeds the MXU without a copy
+        # stays minor/contiguous so the dot reads it without a copy
         t1 = jax.lax.dot_general(
             xr, ft, (((1,), (0,)), ((), ())),
             precision=T._mm_precision())                     # (B*NV, W, r)
@@ -182,20 +147,6 @@ def make_encode(key: Tuple, dtype_name: str,
             else:
                 coeffs = T.exact_dft2_real_zigzag(
                     blk.reshape(nv * nh, d, d), d)
-        elif use_pallas:
-            vecs = blk.reshape(nv * nh, L)
-            n_blocks = nv * nh
-            n_grp = -(-n_blocks // pack)
-            if n_grp * pack != n_blocks:
-                vecs = jnp.concatenate(
-                    [vecs, jnp.zeros((n_grp * pack - n_blocks, L),
-                                     vecs.dtype)], axis=0)
-            packed = PK.encode_blocks(
-                vecs.reshape(n_grp, pack * L),
-                jnp.asarray(op_t, jnp.float32),
-                jnp.asarray(mul_v), jnp.asarray(div_v),
-                jnp.asarray(mask_v))
-            return packed.reshape(n_grp * pack, L)[:n_blocks]
         elif transform == "DCT":
             coeffs = T.dct2_zigzag(blk.reshape(nv * nh, L), d)
         else:
@@ -207,17 +158,15 @@ def make_encode(key: Tuple, dtype_name: str,
     return f
 
 
-def make_encode_batch(key: Tuple, dtype_name: str,
-                      use_pallas: bool = False) -> Callable:
+def make_encode_batch(key: Tuple, dtype_name: str) -> Callable:
     """(B, H, W) band batch -> (B, num_blocks, L) levels.
 
     The separable fast path is batch-polymorphic (its leading reshape
-    absorbs the band axis), so batches go through UNBATCHED dot_generals —
-    a vmapped dot_general forces a batched contraction layout that costs
-    8x (benchmarks/probe_coeff2.py, enc_g vs enc_f).  Non-separable
-    configs fall back to vmap.
+    absorbs the band axis), so batches go through UNBATCHED dot_generals
+    rather than a vmapped dot_general with a batched contraction layout.
+    Non-separable configs fall back to vmap.
     """
-    enc = make_encode(key, dtype_name, use_pallas)
+    enc = make_encode(key, dtype_name)
     if not getattr(enc, "separable", False):
         return jax.vmap(enc)
 
@@ -229,13 +178,11 @@ def make_encode_batch(key: Tuple, dtype_name: str,
 
 
 @functools.lru_cache(maxsize=None)
-def _encode_fn(key: Tuple, dtype_name: str,
-               use_pallas: bool = False) -> Callable:
-    return jax.jit(make_encode(key, dtype_name, use_pallas))
+def _encode_fn(key: Tuple, dtype_name: str) -> Callable:
+    return jax.jit(make_encode(key, dtype_name))
 
 
-def make_decode(key: Tuple, dtype_name: str,
-                use_pallas: bool = False) -> Callable:
+def make_decode(key: Tuple, dtype_name: str) -> Callable:
     """Pure (unjitted) levels -> band function for a static config key."""
     _check_dtype_supported(dtype_name)
     h, w, bs, d, transform, qname, qparams = key
@@ -245,80 +192,20 @@ def make_decode(key: Tuple, dtype_name: str,
                         transform=transform,
                         quantization=QuantizationMethod(qname, **dict(qparams)))
     nv, nh = cfg.blocks_high, cfg.blocks_wide
-    L = d * d
-    deq_v = Q.dequant_int_vector(method, d)
-    use_pallas = (use_pallas and transform in ("DCT", "DFT")
-                  and deq_v is not None)
     # Divisible geometry: the decode dual of the combined encode operator —
     # dezigzag + IDCT + nearest-neighbor inflate as ONE matmul (replica
     # rows are identical, so round-after-matmul == round-then-inflate
     # bitwise; see transform.py:combined_decode_operator).  Kills the
-    # separate inflate/crop HBM passes.
+    # separate inflate/crop passes over the plane.
     divisible = (h % bs == 0 and w % bs == 0
                  and (h // bs) % d == 0 and (w // bs) % d == 0)
     combined = (transform in ("DCT", "DFT") and divisible
                 and dtype != jnp.float64)
     D = d * bs
-    # The pallas path uses the combined operator for EVERY geometry:
-    # pr-major slices keep only a (pack*L, pack*D) panel resident (no
-    # VMEM cap), and inflate-then-crop == crop-then-inflate-then-crop
-    # because subsampled_height = ceil(h/bs) — a plane row r < h reads
-    # subsampled row r//bs < ceil(h/bs), never a DCT-pad row.
-    # f32 contract vs the plain-XLA chain: equal except +-1 where the f64
-    # pre-round value is an exact .5 tie (the packed panels order f32 adds
-    # differently from XLA's shape-blocked dot; see utils/parity.py).
-    combined_p = transform in ("DCT", "DFT") and dtype != jnp.float64
-    if combined or (combined_p and use_pallas):
+    if combined:
         dec2 = T.combined_decode_operator(d, bs, transform)   # (D*D, L)
-    if use_pallas:
-        pack = PK.pack_factor(L)
-        dec_op = (T.decode_operator(d) if transform == "DCT"
-                  else T.dft_decode_operator(d))
-        base = dec2 if combined_p else dec_op
-        w_t = np.kron(np.eye(pack), base.T)
-        deq_v = np.tile(deq_v, pack)
-    if combined_p and use_pallas:
-        # pr-major operator slices: one (pack*L, pack*D) panel per pixel
-        # row of the (D, D) superblock.  Each matmul's output reshapes to
-        # contiguous plane-row groups, so the final interleave moves whole
-        # nh*D-element rows — the single-panel form needed a
-        # (nv, nh, D, D) -> (nv, D, nh, D) transpose whose 16-wide
-        # minor-axis chunks XLA lowers ~10x off bandwidth (the decode twin
-        # of the 47 ms subsample strided-slice bug, commit 4f19b0f;
-        # measured 2.64 -> 0.35 ms, benchmarks/probes/probe_cdec.py).
-        w_prs = [np.ascontiguousarray(
-            w_t[:, np.concatenate([np.arange(p * D * D + pr * D,
-                                             p * D * D + pr * D + D)
-                                   for p in range(pack)])])
-            for pr in range(D)]
 
     def f(levels):
-        if use_pallas:
-            n_blocks = nv * nh
-            n_grp = -(-n_blocks // pack)
-            lv = levels.astype(jnp.int32)
-            if n_grp * pack != n_blocks:
-                lv = jnp.concatenate(
-                    [lv, jnp.zeros((n_grp * pack - n_blocks, L), jnp.int32)],
-                    axis=0)
-            lv = lv.reshape(n_grp, pack * L)
-            if combined_p:
-                deq_j = jnp.asarray(deq_v)
-                rows = [PK.decode_blocks(lv, jnp.asarray(wpr, jnp.float32),
-                                         deq_j)
-                        .reshape(n_grp * pack, D)[:n_blocks]
-                        .reshape(nv, nh * D)
-                        for wpr in w_prs]
-                plane = jnp.stack(rows, axis=1).reshape(nv * D, nh * D)
-                return plane if (nv * D == h and nh * D == w) \
-                    else B.crop(plane, h, w)
-            pix = PK.decode_blocks(lv, jnp.asarray(w_t, jnp.float32),
-                                   jnp.asarray(deq_v))
-            pix = pix.reshape(n_grp * pack, L)[:n_blocks]
-            plane = B.deblockify(pix.reshape(nv, nh, d, d))
-            plane = B.crop(plane, cfg.subsampled_height, cfg.subsampled_width)
-            plane = B.inflate(plane, bs)
-            return B.crop(plane, h, w)
         if combined:
             itype = jnp.int64 if jax.config.jax_enable_x64 else jnp.int32
             deq = Q.dequantize(levels.astype(itype), method, d)
@@ -326,8 +213,8 @@ def make_decode(key: Tuple, dtype_name: str,
                              precision=T._mm_precision())
             pix = jnp.clip(jnp.round(pix), 0, 255).astype(jnp.int32)
             return B.deblockify(pix.reshape(nv, nh, D, D))
-        # int64 only in x64/parity mode; int32 is ample on TPU (|level| <=
-        # 16383 and the largest qtable restore product is < 2**21).
+        # int64 only in x64/parity mode; int32 is ample otherwise (|level|
+        # <= 16383 and the largest qtable restore product is < 2**21).
         itype = jnp.int64 if jax.config.jax_enable_x64 else jnp.int32
         deq = Q.dequantize(levels.astype(itype), method, d)
         parity = dtype == jnp.float64
@@ -357,9 +244,8 @@ def make_decode(key: Tuple, dtype_name: str,
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_fn(key: Tuple, dtype_name: str,
-               use_pallas: bool = False) -> Callable:
-    return jax.jit(make_decode(key, dtype_name, use_pallas))
+def _decode_fn(key: Tuple, dtype_name: str) -> Callable:
+    return jax.jit(make_decode(key, dtype_name))
 
 
 def config_key(config: Configuration) -> Tuple:
@@ -381,8 +267,7 @@ def encode_band_levels(band, config: Configuration, dtype=None) -> jax.Array:
     """(H, W) integer band -> (num_blocks, d*d) int32 zigzag levels."""
     check_band_shape(np.asarray(band), config)
     dt = np.dtype(dtype if dtype is not None else default_dtype())
-    pal = dt == np.float32 and use_pallas_default(config.transform)
-    return _encode_fn(_config_key(config), dt.name, pal)(jnp.asarray(band))
+    return _encode_fn(_config_key(config), dt.name)(jnp.asarray(band))
 
 
 def decode_band_levels(levels, config: Configuration, dtype=None) -> jax.Array:
@@ -392,5 +277,4 @@ def decode_band_levels(levels, config: Configuration, dtype=None) -> jax.Array:
     expected = (config.num_blocks, config.dct_size ** 2)
     if arr.shape != expected:
         raise ValueError(f"levels shape {arr.shape} != expected {expected}")
-    pal = dt == np.float32 and use_pallas_default(config.transform)
-    return _decode_fn(_config_key(config), dt.name, pal)(arr)
+    return _decode_fn(_config_key(config), dt.name)(arr)

@@ -1,6 +1,6 @@
 """Pixel-domain array ops: edge padding, mean-pool subsampling, blockify.
 
-TPU-first replacements for the reference's per-block Python loops
+Vectorized replacements for the reference's per-block Python loops
 (reference: util.py:17-89, pipeline/padding.py, pipeline/subsampling.py,
 pipeline/dct_padding.py).  All functions are pure, shape-static, and safe
 inside ``jax.jit``.
@@ -73,19 +73,17 @@ def subsample_fast(a, block_size: int):
     """f32 fast-path mean-pool with a FIXED evaluation order.
 
     Explicit left-associated strided adds — rows first, then columns —
-    then a reciprocal multiply.  Subsampling always runs in XLA *before*
-    the transform kernel (ops/band.py dispatches here and then runs the
-    separable contraction / encode kernel on both the XLA and Pallas
-    paths), so pinning the add order here is what keeps those two paths
-    bit-identical in f32.  Parity (f64) mode keeps :func:`subsample`'s
+    then a reciprocal multiply.  Subsampling runs *before* the transform
+    (ops/band.py dispatches here and then runs the separable
+    contraction), so pinning the add order here keeps the f32 result
+    independent of how the backend schedules the pooling.  Parity (f64) mode keeps :func:`subsample`'s
     sum-then-true-divide, which matches the reference bitwise; the f32
     path never promises reference bit parity.
 
     Row-then-column 1-D strided slices, NOT the 2-D strided slice per
-    (bi, bj) phase: XLA TPU lowers a doubly-strided slice to a
-    gather-grade relayout — the four (bi::2, bj::2) slices of a 4 MP f32
-    plane measured 47 ms on chip vs ~0.2 ms this way (same values up to
-    f32 add order, which this function pins either way).
+    (bi, bj) phase, which a compiler may lower to a gather-grade relayout
+    (same values up to f32 add order, which this function pins either
+    way).
     """
     _check_2d(a)
     return subsample_fast_hw(a, block_size)

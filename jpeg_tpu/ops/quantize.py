@@ -148,8 +148,8 @@ def quantizer_for(method: QuantizationMethod):
 def epilogue_vectors(method: QuantizationMethod, dct_size: int):
     """(mul, div, mask) f64 vectors s.t. quantize == round(c*mul/div)*mask.
 
-    The factored elementwise form consumed by the Pallas encode kernel
-    (ops/pallas_kernels.py); exactly mirrors :func:`quantize`.
+    The factored elementwise form consumed by the f64 parity oracle
+    (utils/parity.py); exactly mirrors :func:`quantize`.
     """
     L = dct_size * dct_size
     mul = np.ones(L)
@@ -165,28 +165,6 @@ def epilogue_vectors(method: QuantizationMethod, dct_size: int):
     elif name != "none":
         raise ValueError(name)
     return mul, div, mask
-
-
-def dequant_int_vector(method: QuantizationMethod, dct_size: int):
-    """(L,) int64 multiplier with dequantize == levels * vec, or None.
-
-    None when the restore step is not an integer multiply (float divisor,
-    which truncates; see :func:`dequantize`) — callers fall back to the XLA
-    path.
-    """
-    L = dct_size * dct_size
-    name = method.name
-    if name in ("none", "discard"):
-        return np.ones(L, np.int64)
-    if name == "divide":
-        d = method.divisor
-        # int32 kernel multiply must not wrap: require |amp|*d < 2**31.
-        if float(d) == int(d) and int(d) <= (2 ** 31 - 1) // MAX_AMP:
-            return int(d) * np.ones(L, np.int64)
-        return None
-    if name == "qtable":
-        return qtable_zigzag(dct_size).astype(np.int64)
-    raise ValueError(name)
 
 
 def dequantize(levels_zz, method: QuantizationMethod, dct_size: int):

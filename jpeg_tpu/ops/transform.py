@@ -1,19 +1,19 @@
 """Block transforms: unnormalized DCT-II (and DFT), fused with zigzag.
 
-TPU-first design note
----------------------
+Design note
+-----------
 The reference computes the 2-D DCT per block as two passes of 1-D matvecs in
 Python loops (reference: transforms.py:46-75) and then gathers the zigzag
 order per block in another Python loop (reference: pipeline/zigzag_order.py).
-On TPU both collapse into a *single* large matmul: the 2-D transform is
+Here both collapse into a *single* large matmul: the 2-D transform is
 separable, so for a block ``a``:
 
     vec(A @ a @ A.T) = (A kron A) @ vec(a)
 
 and the zigzag reorder is just a row permutation of ``A kron A``.  So the
 whole coefficient path for a batch of N blocks is one
-``(N, d*d) @ (d*d, d*d)`` matmul — ideal for the MXU (contraction dim d*d is
-64+ instead of d=8) and bandwidth-optimal (one read, one write).  The
+``(N, d*d) @ (d*d, d*d)`` matmul (contraction dim d*d is 64+ instead of
+d=8) and bandwidth-optimal (one read, one write).  The
 elementwise quantization afterwards is fused into the matmul epilogue by XLA.
 
 The DCT matrix is the reference's *unnormalized* DCT-II,
@@ -109,9 +109,9 @@ def combined_encode_operator(d: int, bs: int,
     the pixel block is the (d*bs) x (d*bs) region that subsamples to one
     d x d transform block.
 
-    The entire f32 coefficient path becomes ONE matmul — the TPU-first
-    form: no separate subsample pass, no intermediate plane.  Built in
-    float64 and cast to f32 at use, like the plain operators.  Only valid
+    The entire f32 coefficient path becomes ONE matmul: no separate
+    subsample pass, no intermediate plane.  Built in float64 and cast to
+    f32 at use, like the plain operators.  Only valid
     when the band needs no edge padding (callers gate on divisibility; the
     padded path keeps the two-step chain because pixel-domain edge
     replication does not commute with mean-pooling at the seam).
@@ -140,8 +140,7 @@ def separable_encode_factor(d: int, bs: int) -> np.ndarray:
     Two chained single-axis contractions with this factor avoid the
     blockify transpose the jointly-contracted operator forces XLA to
     materialize: stage 1 contracts pixel rows with the full image width
-    contiguous/minor (measured 7-8x over the joint dot at 4.2 MP,
-    benchmarks/probe_coeff2.py).  f32 summation order differs from the
+    contiguous/minor.  f32 summation order differs from the
     joint dot, so this is a fast-path-only form (parity mode keeps the
     reference-order host transform).
     """
@@ -180,9 +179,9 @@ def combined_decode_operator(d: int, bs: int,
 
 
 def _mm_precision():
-    # Full-f32 accumulation on the MXU (3-pass bf16); required because pixel
-    # blocks have magnitude up to 255*d*d and bf16's 8-bit mantissa is far
-    # too coarse for bit-faithful coefficients.
+    # Full-f32 products: without HIGHEST a GPU may run f32 dots in TF32
+    # (10-bit mantissa), far too coarse for pixel blocks of magnitude up to
+    # 255*d*d and bit-faithful coefficients.
     return jax.lax.Precision.HIGHEST
 
 
@@ -296,7 +295,7 @@ class Zigzag:
 # (any matmul) therefore cannot reproduce the reference's np.round results
 # bitwise.  In parity mode we instead evaluate the transform on the host with
 # the reference's exact expression tree — per-row 1-D matvecs, two passes
-# (reference: transforms.py:36-75) — via jax.pure_callback.  The f32 TPU
+# (reference: transforms.py:36-75) — via jax.pure_callback.  The f32
 # fast path never uses this.
 # ---------------------------------------------------------------------------
 
@@ -463,8 +462,8 @@ def dft_encode_operator(n: int) -> np.ndarray:
     the result is ``Re(F kron F) @ vec(X)`` — the DFT curiosity mode
     (reference basis_change.py:20-25 + the complex->int cast at
     run_length_encoding.py:16-17 that keeps only the real part) becomes the
-    SAME fused MXU matmul shape as the DCT path, so it shares the Pallas
-    kernels instead of needing on-device FFT.
+    SAME fused matmul shape as the DCT path instead of needing an
+    on-device FFT.
     """
     j = np.arange(n, dtype=np.float64)
     f = np.exp(-2j * np.pi * np.outer(j, j) / n)
@@ -485,8 +484,8 @@ def dft_decode_operator(n: int) -> np.ndarray:
 def dft2_real_zigzag(blocks, n: int):
     """(..., d, d) pixel blocks -> (..., d*d) zigzag-ordered real(DFT2).
 
-    One fused matmul (see :func:`dft_encode_operator`) — the same MXU shape
-    as the DCT path and bit-consistent with the Pallas DFT kernel."""
+    One fused matmul (see :func:`dft_encode_operator`) — the same shape as
+    the DCT path."""
     m = jnp.asarray(dft_encode_operator(n), dtype=blocks.dtype)
     vecs = blocks.reshape(blocks.shape[:-2] + (n * n,))
     return jnp.matmul(vecs, m.T, precision=_mm_precision())

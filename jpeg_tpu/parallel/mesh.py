@@ -1,7 +1,7 @@
 """Device-mesh construction for the codec's two parallel axes.
 
 The reference is strictly serial (one process, one image, one band at a time;
-reference: pipeline/__init__.py:102-110).  The TPU-native framework scales
+reference: pipeline/__init__.py:102-110).  This codec scales
 along two orthogonal axes (SURVEY.md §2b):
 
 * ``data``  — batch of images (pure DP; images are independent).

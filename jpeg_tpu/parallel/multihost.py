@@ -1,10 +1,11 @@
 """Multi-host execution: jax.distributed + cross-host bitstream stitch.
 
-The reference is strictly single-process (SURVEY.md §2b).  On a multi-host
-TPU slice the codec scales with the standard JAX recipe:
+The reference is strictly single-process (SURVEY.md §2b).  Across several
+processes (one per host, or one per card of a host) the codec scales with
+the standard JAX recipe:
 
-* ``initialize()`` wires up the distributed runtime (ICI within a slice,
-  DCN across hosts) — a no-op for single-process runs.
+* ``initialize()`` wires up the distributed runtime — a no-op for
+  single-process runs.
 * The coefficient path is the same global-mesh jitted program as
   :mod:`jpeg_tpu.parallel.sharded`; each host feeds its local rows via
   ``multihost_utils.host_local_array_to_global_array``.
@@ -14,12 +15,11 @@ TPU slice the codec scales with the standard JAX recipe:
   and every host materializes the identical stitched stream.
 
 Single-process behavior degenerates exactly to ``sharded.compress_plane``
-(tested); the multi-process branches use only public collectives and are
-exercised on real slices.
+(tested); the multi-process branches use only public collectives.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import jax
@@ -34,18 +34,31 @@ from . import sharded
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """Bring up jax.distributed (DCN).  Safe to skip for one process."""
+               process_id: Optional[int] = None,
+               local_device_ids: Optional[Sequence[int]] = None) -> None:
+    """Bring up jax.distributed.  Safe to skip for one process.
+
+    Nothing in the environment describes the cluster, so several processes
+    need ``coordinator_address`` (``host:port`` of process 0) and their
+    ``process_id``.  When several processes share one host, give each its
+    own card, e.g. ``local_device_ids=[k]``: a JAX process otherwise
+    reserves most of the memory of every card it sees, and the next
+    process on that host fails for want of it.
+    """
     if num_processes is None or num_processes <= 1:
         return
+    if coordinator_address is None or process_id is None:
+        raise ValueError("several processes need coordinator_address and "
+                         "process_id")
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def global_mesh(data: Optional[int] = None,
                 band: Optional[int] = None):
-    """Mesh over every device of every host (ICI + DCN)."""
+    """Mesh over every device of every process."""
     return mesh_lib.make_mesh(data=data, band=band)
 
 
@@ -81,8 +94,7 @@ def compress_plane_distributed(plane, config: Configuration,
     dt = np.dtype(band_ops.default_dtype())
     fn = sharded._plane_encode_fn(
         band_ops.config_key(config), dt.name, flat.mesh,
-        tuple(global_plane.shape),
-        sharded._mesh_pallas(flat.mesh, dt, config.transform))
+        tuple(global_plane.shape))
     levels = fn(global_plane)
 
     # Host-local entropy over exactly the block rows this host's devices
@@ -100,7 +112,10 @@ def compress_plane_distributed(plane, config: Configuration,
                 "block order; use a process-contiguous device mesh")
         expect = start + data.shape[0]
     local_start = shards[0][0]
-    local_levels = np.concatenate([d for _, d in shards], axis=0)
+    # Rows past num_blocks are the zero blocks that pad the block count to
+    # a multiple of the device count (sharded._plane_encode_fn).
+    local_levels = np.concatenate([d for _, d in shards], axis=0)[
+        :max(0, config.num_blocks - local_start)]
     local_stream = entropy.encode_levels(local_levels)
 
     # All-gather (global start row, length, padded bytes); stitch sorted by
@@ -137,7 +152,7 @@ def decompress_plane_distributed(stream: bytes, config: Configuration,
       stream: the FULL band stream, present on every host — exactly how
         :func:`compress_plane_distributed` ends (every host materializes
         the stitched stream; compressed bytes are the cheapest thing to
-        replicate across DCN).
+        replicate between processes).
     Returns:
       this host's contiguous share of the reconstructed plane rows (the
       whole plane when the geometry forces replication), bit-equal to the
@@ -145,7 +160,8 @@ def decompress_plane_distributed(stream: bytes, config: Configuration,
 
     Each host scans the stream ONCE in the O(bytes) GIL-releasing scanner
     (duplicated across hosts, never exchanged — rescanning locally is
-    cheaper than shipping offsets over DCN for any realistic stream), then
+    cheaper than shipping offsets between processes for any realistic
+    stream), then
     uploads ONLY its own devices' contiguous block slices
     (sharded._shard_stream_slices); the lockstep bit parse runs under
     ``shard_map`` and the IDCT stays row-band sharded.
@@ -164,12 +180,8 @@ def decompress_plane_distributed(stream: bytes, config: Configuration,
     scan = entropy.scan_offsets(stream, nb, L)     # validates the stream
     flatm = Mesh(mesh.devices.reshape(-1), (mesh_lib.BAND_AXIS,))
     ndev = int(flatm.devices.size)
-    slices, local_starts, slice_lens = sharded._shard_stream_slices(
+    slices, local_starts = sharded._shard_stream_slices(
         [stream], [scan], ndev)
-    slices = DC.host_stream_arg(slices.reshape(-1)).reshape(ndev, -1)
-    bucket_bb = DC.bucket_block_bytes(
-        L, DC.max_block_bytes_of(scan, len(stream)))
-    srt = DC.sort_pays_off(scan, len(stream))
 
     # Host-local rows of the per-device slice tables, contiguous in mesh
     # order (same process-contiguity requirement as the encode path).
@@ -189,38 +201,33 @@ def decompress_plane_distributed(stream: bytes, config: Configuration,
         slices[lo:hi], flatm, spec)
     g_starts = multihost_utils.host_local_array_to_global_array(
         local_starts[lo:hi], flatm, spec)
-    g_lens = multihost_utils.host_local_array_to_global_array(
-        slice_lens[lo:hi], flatm, spec)
 
     dt = np.dtype(band_ops.default_dtype())
-    pal = sharded._mesh_pallas(flatm, dt, config.transform)
     key = band_ops.config_key(config)
-    cache_key = (key, dt.name, flatm, slices.shape, local_starts.shape,
-                 pal, bucket_bb, srt)
+    cache_key = (key, dt.name, flatm, slices.shape, local_starts.shape)
     fn = _DIST_FNS.get(cache_key)
     if fn is None:
-        decode_one = band_ops.make_decode(key, dt.name, pal)
+        decode_one = band_ops.make_decode(key, dt.name)
         lv_sh = NamedSharding(flatm, mesh_lib.fit_spec(
             (nb, L), flatm, spec))
         out_sh = NamedSharding(flatm, mesh_lib.fit_spec(
             (config.height, config.width), flatm, spec))
 
-        def parse_local(sl, st, tl):
-            return DC.decode_stream(sl[0], st[0], L, bucket_bb,
-                                    sort=srt, total_len=tl[0, 0])[None]
+        def parse_local(sl, st):
+            return DC.decode_stream(sl[0], st[0], L)[None]
 
-        def step(sl, st, tl):
+        def step(sl, st):
             lv = jax.shard_map(parse_local, mesh=flatm,
-                               in_specs=(spec, spec, spec),
+                               in_specs=(spec, spec),
                                out_specs=P(mesh_lib.BAND_AXIS, None, None)
-                               )(sl, st, tl)
+                               )(sl, st)
             levels = jax.lax.with_sharding_constraint(
                 lv.reshape(-1, L)[:nb], lv_sh)
             return decode_one(levels)
 
         fn = jax.jit(step, out_shardings=out_sh)
         _DIST_FNS[cache_key] = fn
-    plane = fn(g_slices, g_starts, g_lens)
+    plane = fn(g_slices, g_starts)
 
     # Host-local rows out, deduplicated (a replicated plane appears once
     # per device at row 0) and checked contiguous — mirror of the encode
@@ -242,12 +249,12 @@ def compress_batch_distributed(images, config: Configuration,
                                verify: bool = False):
     """Pure-DP multi-host BATCH encode — BASELINE config 5's real shape
     (replaces the reference's serial per-band loop,
-    pipeline/__init__.py:102-110, at slice scale).
+    pipeline/__init__.py:102-110, at cluster scale).
 
     Every process receives the SAME ordered batch description; process p
     encodes the images whose index i satisfies ``i % nproc == p`` on its
     OWN local devices (api.compress_many pipelining) — pixels and
-    container bytes never cross DCN.  Only a per-image manifest (byte
+    container bytes never cross processes.  Only a per-image manifest (byte
     count, ok flag, optional PSNR milli-dB) is allgathered, so every host
     returns identical global metrics while blobs stay host-local.
 
@@ -302,7 +309,7 @@ def compress_batch_distributed(images, config: Configuration,
 
     if nproc <= 1:
         return blobs, local
-    # Manifest-only DCN traffic: (nproc, B, 3) -> elementwise max keeps
+    # Manifest-only traffic: (nproc, B, 3) -> elementwise max keeps
     # each image's single owner entry (all other rows are zero/-1).
     gathered = np.asarray(multihost_utils.process_allgather(
         jnp.asarray(local)))

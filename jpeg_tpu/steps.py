@@ -1,5 +1,5 @@
 """Invertible ordered-step pipeline — the reference's key architecture,
-TPU-native.
+as jitted array code.
 
 The reference structures the codec as a totally-ordered list of invertible
 steps, auto-registered by a metaclass and sorted by a mandatory

@@ -2,7 +2,7 @@
 
 Users of the reference import ``pad_array`` / ``split_into_blocks`` / ... by
 name; these wrappers expose the same names and call signatures over the
-TPU-native implementations in :mod:`jpeg_tpu.ops.blocks` (vectorized jnp,
+vectorized implementations in :mod:`jpeg_tpu.ops.blocks` (jnp,
 returning NumPy arrays for host callers).
 """
 from __future__ import annotations

@@ -39,17 +39,15 @@ def pull_prefix(dev_u8, nbytes: int) -> bytes:
     return np.asarray(dev_u8[:cap])[:n].tobytes()
 
 
-def device_entropy_default(decode: bool = False) -> bool:
-    """Single policy for running entropy coding on device.
+def device_entropy_default(platform: str | None = None) -> bool:
+    """The one policy that places entropy coding (encode and decode) on the
+    device (entropy/device_codec.py, plain XLA) or the host C++ codec.
 
-    Encode: TPU backend unless JPEG_TPU_HOST_ENTROPY.  Decode: additionally
-    JPEG_TPU_DEVICE_DECODE=0 opts out (device bit parsing has a first-compile
-    cost the encode path doesn't).
+    On a GPU the device side won both directions of a host-vs-device
+    measurement on an H100 at 2048x2048 (PERF.md); every other platform
+    keeps the host codec.  ``platform`` defaults to JAX's default backend.
     """
-    import os
-    import jax
-    if os.environ.get("JPEG_TPU_HOST_ENTROPY"):
-        return False
-    if decode and os.environ.get("JPEG_TPU_DEVICE_DECODE", "1") == "0":
-        return False
-    return jax.default_backend() == "tpu"
+    if platform is None:
+        import jax
+        platform = jax.default_backend()
+    return platform == "gpu"

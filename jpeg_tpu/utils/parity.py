@@ -1,9 +1,9 @@
 """f32 cross-path parity contract: equal except +-1 at provable round ties.
 
 The f32 fast path evaluates the same linear maps through several evaluation
-orders — XLA's shape-blocked matmuls, the Mosaic kernels' packed
-block-diagonal panels (ops/pallas_kernels.py), the separable two-stage
-contraction (ops/band.py) — and ``round()`` sits right after each.  Where
+orders — XLA's shape-blocked matmuls on each backend, the joint combined
+operator, the separable two-stage contraction (ops/band.py) — and
+``round()`` sits right after each.  Where
 the EXACT (f64) pre-round value is an exact half-integer (the unnormalized
 DCT's cos(pi/4) rows and the DFT's dyadic-rational operator entries make
 these common, see ops/transform.py docstring "Parity-exact transforms"),
@@ -25,9 +25,8 @@ benchmark campaign can use it without touching the jax x64 flag.
 
 Scope note: quantizers with a non-integer ``divide`` divisor add a
 ``trunc`` boundary on decode (ops/quantize.py:dequantize) that this mask
-does not model; the Pallas decode path already excludes them
-(dequant_int_vector returns None), so the contract applies to the paths
-that can actually disagree.
+does not model, so the contract covers the integer-multiply quantizers
+(none, discard, integer divide, qtable).
 """
 from __future__ import annotations
 
@@ -89,8 +88,8 @@ def encode_reference_and_ties(cfg: Configuration, band):
     levels_ref = (np.round(q) * mask).astype(np.int32)
     # |computed_f32 - exact| <= ~(contraction length) * eps * sum|terms|;
     # the factored abs (|vec| @ |enc|.T) upper-bounds every evaluation
-    # order in use (joint dot, packed block-diagonal panels, separable
-    # two-stage chain — see module docstring); +16 covers the subsample
+    # order in use (joint dot, separable two-stage chain — see module
+    # docstring); +16 covers the subsample
     # division (bs^2 not a power of two) and the quantizer epilogue ULPs.
     absq = (np.abs(vec) @ np.abs(enc.T)) * np.abs(mul) / div
     bound = (L + 16) * EPS32 * absq
@@ -154,3 +153,21 @@ def assert_tie_equal(got, want, ties, label=""):
     msg = tie_diff_report(got, want, ties)
     if msg is not None:
         raise AssertionError(f"tie contract violated {label}: {msg}")
+
+
+def decode_steps(levels) -> int:
+    """Steps the lock-step device decoder (entropy/device_codec.py) takes
+    for (..., N, L) levels: one per code unit of the longest block (codes,
+    zero-run chains and the EOB)."""
+    lv = np.asarray(levels)
+    if lv.size == 0:
+        return 0
+    L = lv.shape[-1]
+    idx = np.arange(L)
+    nz = lv != 0
+    prev = np.maximum.accumulate(np.where(nz, idx, -1), axis=-1)
+    prev = np.concatenate([np.full(lv.shape[:-1] + (1,), -1),
+                           prev[..., :-1]], axis=-1)
+    chains = np.where(nz, (idx - prev - 1) // 15, 0)
+    units = nz.sum(-1) + chains.sum(-1) + 1
+    return int(units.max())

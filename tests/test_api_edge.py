@@ -18,7 +18,7 @@ def test_overrange_amplitude_rejected():
 
 
 def test_device_entropy_path_matches_host(monkeypatch):
-    # Force the fully-on-device entropy path (normally TPU-only) and check
+    # Force the fully-on-device entropy path (GPU-only by policy) and check
     # the container bytes are identical to the host entropy path.
     from jpeg_tpu import api
     rng = np.random.default_rng(5)

@@ -179,7 +179,7 @@ def test_batch_cli_distributed_two_process(tmp_path):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
-    env["JPEG_TPU_CPU"] = "1"
+    env["JAX_PLATFORMS"] = "cpu"
     # parity mode, to match the serial reference encoded under conftest's
     # x64 pin (fast f32 would round a few coefficients differently)
     env["JAX_ENABLE_X64"] = "1"

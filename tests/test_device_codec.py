@@ -1,5 +1,5 @@
 """Device-side entropy encoder vs the host codec: bit-identical streams."""
-import os
+import zlib
 
 import numpy as np
 import pytest
@@ -149,7 +149,7 @@ def test_encode_stream_chunks_matches_one_shot(monkeypatch):
 
 def test_compress_ycbcr_chunked_device_path(monkeypatch):
     """A batch past the (shrunk) int32 ceiling stays on the device-entropy
-    path and produces byte-identical containers (VERDICT r1 item 7)."""
+    path and produces byte-identical containers."""
     from jpeg_tpu import Configuration, QuantizationMethod, api
     cfg = Configuration(width=64, height=48, block_size=2, dct_size=8,
                         quantization=QuantizationMethod("qtable"))
@@ -162,286 +162,110 @@ def test_compress_ycbcr_chunked_device_path(monkeypatch):
     assert api.compress_ycbcr(img, cfg) == want
 
 
-@pytest.mark.parametrize("L", [16, 64])
-def test_pallas_decode_kernel_matches_xla(L, monkeypatch):
-    """Mosaic bitstream-decode kernel (interpret mode) == XLA fallback."""
-    for density in (0.0, 0.08, 0.5):
-        levels = np.zeros((37, L), dtype=np.int32)
-        mask = RNG.random(levels.shape) < density
-        levels[mask] = RNG.integers(-16383, 16384, int(mask.sum()))
-        stream = NC.encode_levels(levels)
-        starts = NC.scan_offsets(stream, 37, L)
-        buf = jnp.asarray(np.frombuffer(stream, np.uint8))
-        st = jnp.asarray(starts)
-        want = np.asarray(DC.decode_stream(buf, st, L))     # XLA path (CPU)
-        monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-        got = np.asarray(DC.decode_stream(buf, st, L))      # kernel path
-        monkeypatch.delenv("JPEG_TPU_PALLAS")
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(got, levels)
-
-
-def test_pallas_decode_kernel_edge_sizes(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    from jpeg_tpu.ops.pallas_kernels import DEC_TILE
-    L = 64
-    for n in (1, DEC_TILE, DEC_TILE + 3):
-        levels = np.zeros((n, L), dtype=np.int32)
-        levels[:, 0] = np.arange(n) % 1000 - 500
-        levels[:, L - 1] = 3
-        stream = NC.encode_levels(levels)
-        starts = NC.scan_offsets(stream, n, L)
-        got = np.asarray(DC.decode_stream(
-            jnp.asarray(np.frombuffer(stream, np.uint8)),
-            jnp.asarray(starts), L))
-        np.testing.assert_array_equal(got, levels)
-
-
-def test_decode_geometry_buckets():
-    # worst case for L=64 is 185 bytes: need (185+2)//4 = 46 -> G bucket 48
-    assert DC.dec_group(64, 0) == 48 and DC.dec_weff(64, 0) == 48
-    assert DC.words_per_block(64, 0) == 96          # overlap row = 2G
-    assert DC.dec_group(64, 300) == 48              # > wc clamps to full
-    assert DC.dec_group(64, 13) == 16 and DC.dec_weff(64, 13) == 6
-    assert DC.dec_group(64, 43) == 16 and DC.dec_weff(64, 43) == 12
-    assert DC.dec_group(64, 66) == 24
-    assert DC.dec_group(64, 120) == 32
-    for mb in (1, 5, 20, 60, 120, 185):
-        G = DC.dec_group(64, mb)
-        # a block starting anywhere in its group fits wholly in the 2G row
-        assert (mb + 2) // 4 <= G
-        # the trimmed kernel width still covers the block's bytes
-        assert DC.dec_weff(64, mb) * 4 >= mb
-        # bucket fixed point: same compiled geometry, never below mb
-        b = DC.bucket_block_bytes(64, mb)
-        assert b >= mb
-        assert (DC.dec_group(64, b), DC.dec_weff(64, b)) == \
-            (G, DC.dec_weff(64, mb))
-
-
-def test_pallas_decode_dynamic_width(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    L = 64
-    levels = np.zeros((37, L), dtype=np.int32)
-    mask = RNG.random(levels.shape) < 0.2
-    levels[mask] = RNG.integers(-900, 900, int(mask.sum()))
-    stream = NC.encode_levels(levels)
-    starts = NC.scan_offsets(stream, 37, L)
-    buf = jnp.asarray(np.frombuffer(stream, np.uint8))
-    st = jnp.asarray(starts)
-    mbb = DC.max_block_bytes_of(starts, len(stream))
-    for bb in (0, mbb, DC.bucket_block_bytes(L, mbb)):
-        got = np.asarray(DC.decode_stream(buf, st, L, bb))
-        np.testing.assert_array_equal(got, levels)
-
-
-def test_pallas_decode_sorted_tiles(monkeypatch):
-    """The length-sorted tile path (n > DEC_TILE) must return levels in
-    original block order; shrink the tile so 64 blocks span many tiles."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setattr(PK, "DEC_TILE", 8)
-    L = 64
-    levels = np.zeros((64, L), dtype=np.int32)
-    # widely varying block lengths to force a nontrivial permutation
-    for i in range(64):
-        k = RNG.integers(0, L)
-        levels[i, :k] = RNG.integers(-50, 50, k)
-    stream = NC.encode_levels(levels)
-    starts = NC.scan_offsets(stream, 64, L)
-    buf = jnp.asarray(np.frombuffer(stream, np.uint8))
-    got = np.asarray(DC.decode_stream(buf, jnp.asarray(starts), L))
-    np.testing.assert_array_equal(got, levels)
-    # The unsorted layout (hosts choose it for homogeneous bands via
-    # sort_pays_off) must be bit-identical.
-    got_u = np.asarray(DC.decode_stream(buf, jnp.asarray(starts), L,
-                                        sort=False))
-    np.testing.assert_array_equal(got_u, levels)
-
-
-def test_sort_pays_off_decision():
-    """Homogeneous lengths -> no sort; one long block per natural tile with
-    tiny neighbours -> sort (per-tile maxima collapse under sorting)."""
-    tile = 64
-    n = 16 * tile
-    homog = np.full(n, 20, np.int64)
-    starts = np.cumsum(homog) - homog
-    assert not DC.sort_pays_off(starts, int(homog.sum()), tile)
-    hetero = np.full(n, 2, np.int64)
-    hetero[::tile] = 180                       # every natural tile pays 180
-    starts = np.cumsum(hetero) - hetero
-    assert DC.sort_pays_off(starts, int(hetero.sum()), tile)
-    # Fewer blocks than one tile: the tile max is the global max either way.
-    assert not DC.sort_pays_off(starts[:tile // 2], int(hetero[:tile // 2]
-                                                        .sum()), tile)
-
-
-@pytest.mark.parametrize("L", [16, 64])
-def test_pallas_encode_kernel_matches_host(L, monkeypatch):
-    """Mosaic bitstream-ENCODE kernel + grouped-gather compaction
-    (interpret mode) == host codec bytes, remainder zero."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setattr(PK, "ENC_TILE", 64)       # keep interpret fast
-    densities = ((0.0, 0.08, 0.5, 1.0)
-                 if os.environ.get("JPEG_TPU_SLOW_TESTS") else (0.08, 1.0))
-    for density in densities:
-        levels = np.zeros((37, L), dtype=np.int32)
-        mask = RNG.random(levels.shape) < density
-        levels[mask] = RNG.integers(-16383, 16384, int(mask.sum()))
-        buf, blk_bytes = DC.encode_stream(jnp.asarray(levels))
-        total = int(np.asarray(blk_bytes).sum())
-        buf = np.asarray(buf)
-        assert buf[:total].tobytes() == NC.encode_levels(levels), (
-            f"L={L} density={density}")
-        assert not buf[total:].any()
-
-
-def _encode_merge_unit_edge(ns):
-    from jpeg_tpu.ops import pallas_kernels as PK
-    L = 64
-    u = 1 << DC.MERGE_DEPTH
-    for n in ns:
-        levels = np.zeros((n, L), dtype=np.int32)
-        levels[0::2, :] = 16383                   # worst-case length blocks
-        levels[1::2, 0] = -1                      # next to near-empty ones
-        buf, blk_bytes = DC.encode_stream(jnp.asarray(levels))
-        total = int(np.asarray(blk_bytes).sum())
-        buf = np.asarray(buf)
-        assert buf[:total].tobytes() == NC.encode_levels(levels), f"n={n}"
-        assert not buf[total:].any()
-
-
-def test_pallas_encode_merge_unit_edge(monkeypatch):
-    """A unit-straddle boundary in the default run, at the depth FLOOR
-    (compact_rows scales MERGE_DEPTH down for small batches, so depth 6 is
-    a real production configuration): n = 65 puts one block past the first
-    64-block unit with worst-length blocks next to near-empty ones.  The
-    full depth-9 straddle sweep is gated — each n is a separate ~25 s
-    interpret trace over 8x the blocks."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setattr(PK, "ENC_TILE", 64)
-    _encode_merge_unit_edge((65,))           # floor: m=6 (u=64), G=16
-
-
-@pytest.mark.slow
-def test_pallas_encode_merge_unit_edges(monkeypatch):
-    """Block counts straddling the 2**MERGE_DEPTH merge-unit size, with
-    max-length blocks adjacent to empty ones so compaction's output groups
-    span unit boundaries."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setattr(PK, "ENC_TILE", 64)
-    u = 1 << DC.MERGE_DEPTH
-    _encode_merge_unit_edge((1, u - 1, u, u + 1, 2 * u + 2))
-
-
-def test_pallas_encode_tile_boundary(monkeypatch):
-    """Grid > 1: blocks spanning several ENC_TILE kernel tiles."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setattr(PK, "ENC_TILE", 8)
-    L = 64
-    levels = np.zeros((9, L), dtype=np.int32)
-    for i in range(9):
-        k = int(RNG.integers(0, L))
-        levels[i, :k] = RNG.integers(-50, 50, k)
-    buf, blk_bytes = DC.encode_stream(jnp.asarray(levels))
-    total = int(np.asarray(blk_bytes).sum())
-    assert np.asarray(buf)[:total].tobytes() == NC.encode_levels(levels)
-
-
-@pytest.mark.slow
-def test_pallas_encode_medium_L_tables(monkeypatch):
-    """dct_size 12 -> L = 144 through the tables kernel (multi-word
-    groups past the one-word fast path) in the default run; the L=576
-    sweep is gated."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setenv("JPEG_TPU_ENC_TABLES", "1")
-    monkeypatch.setattr(PK, "ENC_TILE", 8)
-    L = 144
-    levels = np.zeros((3, L), dtype=np.int32)
-    mask = RNG.random(levels.shape) < 0.3
-    levels[mask] = RNG.integers(-16383, 16384, int(mask.sum()))
-    buf, blk_bytes = DC.encode_stream(jnp.asarray(levels))
-    total = int(np.asarray(blk_bytes).sum())
-    buf = np.asarray(buf)
-    assert buf[:total].tobytes() == NC.encode_levels(levels)
-    assert not buf[total:].any()
-
-
-@pytest.mark.slow
-def test_pallas_encode_large_L(monkeypatch):
-    """dct_size 24 -> L = 576 vectors (wide W, multi-word groups).
-
-    Forces the tables kernel: interpret-mode L > 75 defaults to the
-    scatter formulation (the lv kernel is impractically slow to trace
-    interpreted at this L, and the tables path cannot carry > 4 chain
-    bytes — this content has no such runs)."""
-    from jpeg_tpu.ops import pallas_kernels as PK
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setenv("JPEG_TPU_ENC_TABLES", "1")
-    monkeypatch.setattr(PK, "ENC_TILE", 8)
-    L = 576
-    levels = np.zeros((5, L), dtype=np.int32)
-    mask = RNG.random(levels.shape) < 0.3
-    levels[mask] = RNG.integers(-16383, 16384, int(mask.sum()))
-    buf, blk_bytes = DC.encode_stream(jnp.asarray(levels))
-    total = int(np.asarray(blk_bytes).sum())
-    buf = np.asarray(buf)
-    assert buf[:total].tobytes() == NC.encode_levels(levels)
-    assert not buf[total:].any()
-
-
-@pytest.mark.parametrize("pallas", [False, True])
-def test_words_interchange_roundtrip(pallas, monkeypatch):
-    """emit="words" encode -> decode_stream directly on the BE words: the
-    zero-relayout device-resident interchange must be bit-equivalent to the
-    u8 form on both the Pallas and XLA paths."""
-    if pallas:
-        monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
+def _levels_of(kind):
+    """Content generators for the scatter-encoder and loop-decoder checks:
+    the worst cases and boundaries of the per-block stream geometry."""
+    rng = np.random.default_rng(zlib.crc32(kind.encode()))
+    if kind == "worst_case":               # 185-byte blocks beside an empty
+        lv = np.full((9, 64), 16383, np.int32)
+        lv[4] = 0
+        lv[6] = -16383
+    elif kind == "long_runs_L80":          # 79-zero run: 5 chain bytes
+        lv = np.zeros((3, 80), np.int32)
+        lv[0, 79] = 5
+        lv[1, 0] = -3
+    elif kind == "long_runs_L144":         # up to 9 chains, two long runs
+        lv = np.zeros((8, 144), np.int32)
+        lv[1, 143] = 5
+        lv[2, 0] = -3
+        lv[3, 75] = 7
+        lv[3, 143] = -9
+        lv[4, 60] = 1                      # exactly 4 chains
+        lv[5, 76] = 2                      # 5 chains
+    elif kind == "sparse_L144":            # smooth content at dct_size 12
+        lv = np.zeros((96, 144), np.int32)
+        m = rng.random(lv.shape) < 0.04
+        lv[m] = rng.integers(-16383, 16384, int(m.sum()))
+    elif kind == "d24":                    # dct_size 24, L = 576
+        lv = np.zeros((5, 576), np.int32)
+        m = rng.random(lv.shape) < 0.3
+        lv[m] = rng.integers(-16383, 16384, int(m.sum()))
+    elif kind == "one_block":
+        lv = np.zeros((1, 64), np.int32)
+        lv[0, :5] = [700, -3, 0, 1, -1]
+    elif kind == "all_eob":                # empty band: 1-byte blocks
+        lv = np.zeros((200, 64), np.int32)
+    elif kind == "unit_straddle":          # worst next to near-empty, n=513
+        lv = np.zeros((513, 64), np.int32)
+        lv[0::2, :] = 16383
+        lv[1::2, 0] = -1
+    elif kind == "short_alternating":      # 9 non-zero vs 1-code blocks
+        lv = np.zeros((513, 64), np.int32)
+        lv[0::2, :7] = 9
+        lv[1::2, 0] = -1
+    elif kind == "varied_lengths":         # every length class mixed
+        lv = np.zeros((64, 64), np.int32)
+        for i in range(64):
+            k = int(rng.integers(0, 64))
+            lv[i, :k] = rng.integers(-50, 50, k)
+    elif kind == "ramp":                   # 1027 blocks, first + last slot
+        lv = np.zeros((1027, 64), np.int32)
+        lv[:, 0] = np.arange(1027) % 1000 - 500
+        lv[:, 63] = 3
+    elif kind == "short_blocks":           # under 20 coefficients each
+        lv = np.zeros((70, 64), np.int32)
+        for i in range(70):
+            k = int(rng.integers(0, 20))
+            lv[i, :k] = rng.integers(-100, 100, k)
     else:
-        monkeypatch.setenv("JPEG_TPU_NO_PALLAS", "1")
-    L = 64
-    levels = np.zeros((23, L), dtype=np.int32)
-    mask = RNG.random(levels.shape) < 0.2
-    levels[mask] = RNG.integers(-2000, 2000, int(mask.sum()))
-
-    words, bb = jax.jit(lambda lv: DC.encode_stream(lv, emit="words"))(
-        jnp.asarray(levels))
-    assert words.dtype == jnp.uint32
-    bb_np = np.asarray(bb)
-    total = int(bb_np.sum())
-    # the words' byte view equals the u8 form / the host codec
-    be = np.asarray(words).astype(">u4").tobytes()[:total]
-    assert be == NC.encode_levels(levels)
-
-    starts = np.concatenate([[0], np.cumsum(bb_np)[:-1]]).astype(np.int32)
-    got = np.asarray(jax.jit(
-        lambda w, s: DC.decode_stream(w, s, L, total_len=jnp.int32(total)))(
-            words, jnp.asarray(starts)))
-    assert np.array_equal(got, levels)
+        raise ValueError(kind)
+    return lv
 
 
-def test_words_interchange_sized(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    L = 64
-    # Dense enough that total stream BYTES exceed the buffer's WORD count —
-    # the poison check must compare in bytes, not buffer elements.
-    levels = np.zeros((16, L), dtype=np.int32)
-    mask = RNG.random(levels.shape) < 0.6
-    levels[mask] = RNG.integers(-16000, 16000, int(mask.sum()))
-    bb = np.asarray(jax.jit(DC.block_bytes_of)(jnp.asarray(levels)))
-    assert bb.sum() > 16 * DC.worst_case_block_bytes(L) // 4
-    W = DC.encode_words_bucket(L, int(bb.max()))
-    cap = DC.encode_cap_bucket(int(bb.sum()),
-                               levels.shape[0] * DC.worst_case_block_bytes(L))
-    words, bb2, bad = jax.jit(
-        lambda lv: DC.encode_stream_sized(lv, W, cap, emit="words"))(
-            jnp.asarray(levels))
-    DC.check_sized_ok(bad)
-    total = int(np.asarray(bb2).sum())
-    assert np.asarray(words).astype(">u4").tobytes()[:total] == \
-        NC.encode_levels(levels)
+_KINDS = ["worst_case", "long_runs_L80", "long_runs_L144", "sparse_L144",
+          "d24", "one_block", "all_eob", "unit_straddle",
+          "short_alternating", "varied_lengths", "ramp", "short_blocks"]
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_scatter_encode_matches_host(kind):
+    """Scatter encoder == host codec bytes, remainder zero, and its
+    per-block byte counts match the host stream's block boundaries."""
+    lv = _levels_of(kind)
+    want = NC.encode_levels(lv)
+    buf, bb = jax.jit(DC.encode_stream)(jnp.asarray(lv))
+    buf, bb = np.asarray(buf), np.asarray(bb)
+    total = int(bb.sum())
+    assert buf[:total].tobytes() == want
+    assert not buf[total:].any()
+    starts = NC.scan_offsets(want, lv.shape[0], lv.shape[1])
+    np.testing.assert_array_equal(np.diff(starts, append=len(want)), bb)
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_loop_decode_matches_host(kind):
+    """The lock-step while_loop decoder returns the host decoder's levels."""
+    lv = _levels_of(kind)
+    stream = NC.encode_levels(lv)
+    n, L = lv.shape
+    starts = NC.scan_offsets(stream, n, L)
+    got = jax.jit(DC.decode_stream, static_argnums=2)(
+        jnp.asarray(np.frombuffer(stream, np.uint8)), jnp.asarray(starts), L)
+    np.testing.assert_array_equal(np.asarray(got), lv)
+    np.testing.assert_array_equal(NC.decode_levels(stream, n, L), lv)
+
+
+def test_device_entropy_pipelined_matches_serial(monkeypatch):
+    """compress_many / decompress_many on the device-entropy path equal the
+    per-image host-entropy results."""
+    from jpeg_tpu import Configuration, QuantizationMethod, api
+    cfg = Configuration(width=32, height=32, block_size=2, dct_size=8,
+                        quantization=QuantizationMethod("qtable"))
+    imgs = [RNG.integers(0, 256, (32, 32, 3)).astype(np.uint8)
+            for _ in range(3)]
+    want = [api.compress_ycbcr(im, cfg) for im in imgs]
+    planes = [api.decompress_to_ycbcr(b) for b in want]
+    monkeypatch.setattr(api, "_use_device_entropy", lambda: True)
+    assert api.compress_many(imgs, cfg) == want
+    for got, p in zip(api.decompress_many(want), planes):
+        np.testing.assert_array_equal(got, p)

@@ -5,10 +5,8 @@ and exact error passthrough via the hybrid wrapper.
 The device scan replaces the last serial host stage of decode (reference
 rle_byte_stream.py:74-88 walks the stream one code at a time); its contract
 is bit-exact starts when ``ok`` and a host rescan (canonical error) when
-not.  Runs on CPU here; tpu_tests covers the compiled path on chip.
+not.  Runs on CPU here; chip_smoke.py phase 4 runs it on the GPU.
 """
-import os
-
 import numpy as np
 import pytest
 
@@ -128,7 +126,7 @@ def test_fuzz_three_way_with_flag():
 
 
 def test_env_flag_dispatch(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_DEVICE_SCAN", "1")
+    monkeypatch.setenv("JPEG_TPU_SCAN", "device")
     lv = _rand_levels(np.random.default_rng(7), 12, 64)
     data = NC.encode_levels(lv)
     assert np.array_equal(entropy.scan_offsets(data, 12, 64),
@@ -140,7 +138,6 @@ def test_env_flag_dispatch(monkeypatch):
 def test_end_to_end_decode_with_device_scan(monkeypatch):
     """Full container round-trip with the device scan feeding the device
     bit parser: bytes and planes identical to the default path."""
-    monkeypatch.setenv("JPEG_TPU_DEVICE_DECODE", "1")
     from jpeg_tpu import (Configuration, QuantizationMethod, compress_ycbcr,
                           decompress_to_ycbcr)
     rng = np.random.default_rng(3)
@@ -149,81 +146,30 @@ def test_end_to_end_decode_with_device_scan(monkeypatch):
                         quantization=QuantizationMethod("qtable"))
     blob = compress_ycbcr(img, cfg)
     base = decompress_to_ycbcr(blob)
-    monkeypatch.setenv("JPEG_TPU_DEVICE_SCAN", "1")
+    monkeypatch.setenv("JPEG_TPU_SCAN", "device")
     assert np.array_equal(decompress_to_ycbcr(blob), base)
 
 
-@pytest.mark.parametrize("n,L,density", [
-    (1, 64, 0.2), (37, 64, 0.05), (64, 16, 0.5),
-    (200, 64, 0.0),      # all-EOB stream: 1-byte blocks
-])
-def test_pallas_walker_matches_host_scan(n, L, density, monkeypatch):
-    """The Mosaic funnel walker (interpret mode) == host scan on valid
-    streams, including the speculative table's garbage-walker semantics."""
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    rng = np.random.default_rng(n * 1000 + L + 7)
-    data = NC.encode_levels(_rand_levels(rng, n, L, density))
-    starts, ok = DS.scan_offsets_device(data, n, L)
-    assert ok
-    assert np.array_equal(starts, NC.scan_offsets(data, n, L))
-
-
-def test_pallas_walker_rejects_malformed(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    data = NC.encode_levels(np.ones((4, 16), np.int32))
-    for bad in (data[:-1], data + b"\x00", data[1:],
-                data[:len(data) // 2]):
-        _, ok = DS.scan_offsets_device(bad, 4, 16)
-        assert not ok
-
-
-def test_pallas_walker_mutation_fuzz(monkeypatch):
-    """Single-byte mutations: the walker's ok flag must agree with the host
-    scanner's accept/reject on every mutant, and starts must match when
-    both accept (same differential as test_fuzz_three_way_with_flag)."""
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    rng = np.random.default_rng(99)
-    L = 64
-    data = bytearray(NC.encode_levels(_rand_levels(rng, 12, L, 0.2)))
-    for _ in range(25):
-        i = int(rng.integers(0, len(data)))
-        v = int(rng.integers(0, 256))
-        mut = bytes(data[:i]) + bytes([v]) + bytes(data[i + 1:])
-        try:
-            want = NC.scan_offsets(mut, 12, L)
-            host_ok = True
-        except (BadStreamError, BadRleCodeError):
-            host_ok = False
-        starts, ok = DS.scan_offsets_device(mut, 12, L)
-        assert bool(ok) == host_ok, (i, v)
-        if host_ok:
-            assert np.array_equal(starts, want), (i, v)
-
-def test_pallas_walker_rung_escalation(monkeypatch):
-    """Blocks longer than the first window rung force an escalation to the
-    worst-case span; the result must still match the host scan exactly."""
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
+def test_long_blocks_match_host_scan():
+    """Blocks far longer than typical (dense max-size codes) next to short
+    ones: the walkers' full unit budget, exact host starts."""
     L = 64
     lv = np.zeros((6, L), np.int32)
-    lv[2, :] = 16000          # dense max-size block: ~3x the 62-byte rung
+    lv[2, :] = 16000          # dense max-size block, ~180 bytes
     lv[4, ::3] = -1999
     data = NC.encode_levels(lv)
-    assert max(np.diff(NC.scan_offsets(data, 6, L))) > DS._SPAN_RUNGS[0]
-    DS._rung_cache.pop(L, None)
+    assert max(np.diff(NC.scan_offsets(data, 6, L))) > 126
     starts, ok = DS.scan_offsets_device(data, 6, L)
     assert ok
     assert np.array_equal(starts, NC.scan_offsets(data, 6, L))
-    assert DS._rung_cache[L] > 0      # remembered the rung that succeeded
 
 
-def test_scan_bands_starts_multiband(monkeypatch):
+def test_scan_bands_starts_multiband():
     """One walker table over a 3-band concatenated buffer + three orbit
     chases (the fused foreign-decode's scan): starts match the per-band
     host scans, and a truncated middle band fails the per-band ok."""
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
     import jax
     import jax.numpy as jnp
-    from jpeg_tpu.entropy import device_codec as DC
     from jpeg_tpu.utils.device import quarter_cap
     rng = np.random.default_rng(11)
     L, nb = 64, 9
@@ -237,8 +183,7 @@ def test_scan_bands_starts_multiband(monkeypatch):
         arr[:len(buf)] = np.frombuffer(buf, np.uint8)
         ends = np.cumsum([len(b) for b in bands_bytes]).astype(np.int32)
         fn = jax.jit(lambda s, e: DS.scan_bands_starts(s, e, nb, L))
-        starts, ok = fn(jnp.asarray(DC.host_stream_arg(arr)),
-                        jnp.asarray(ends))
+        starts, ok = fn(jnp.asarray(arr), jnp.asarray(ends))
         return np.asarray(starts), bool(ok)
 
     starts, ok = run(bands)
@@ -256,10 +201,8 @@ def test_scan_bands_starts_multiband(monkeypatch):
 
 def test_foreign_decode_one_dispatch(monkeypatch):
     """api one-dispatch foreign decode (scan + parse + IDCT in one
-    program): planes identical to the host-scan path, including the rung
-    escalation for a long block and the host fallback on malformed data."""
-    monkeypatch.setenv("JPEG_TPU_DEVICE_DECODE", "1")
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
+    program): planes identical to the host-scan path, including long
+    blocks, and the host scanner's error on malformed data."""
     from jpeg_tpu import (Configuration, QuantizationMethod, compress_ycbcr,
                           decompress_to_ycbcr)
     rng = np.random.default_rng(5)
@@ -269,42 +212,31 @@ def test_foreign_decode_one_dispatch(monkeypatch):
     blob = compress_ycbcr(img, cfg)
     base = decompress_to_ycbcr(blob)
     monkeypatch.setenv("JPEG_TPU_SCAN", "device")
-    DS._rung_cache.pop(64, None)
     assert np.array_equal(decompress_to_ycbcr(blob), base)
     # Malformed container body: same canonical error as the host path.
-    from jpeg_tpu.config import BadStreamError
     bad = blob[:-3]
     with pytest.raises(Exception):
         decompress_to_ycbcr(bad)
 
 
-def test_scan_mode_policy(monkeypatch):
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
-    monkeypatch.setenv("JPEG_TPU_SCAN", "device")
-    assert DS.scan_mode(10) == "device"
-    monkeypatch.setenv("JPEG_TPU_SCAN", "host")
-    assert DS.scan_mode(1 << 30) == "host"
-    monkeypatch.delenv("JPEG_TPU_SCAN")
-    monkeypatch.setenv("JPEG_TPU_DEVICE_SCAN", "1")   # legacy alias
-    assert DS.scan_mode(10) == "device"
-    monkeypatch.delenv("JPEG_TPU_DEVICE_SCAN")
-    # auto: host whenever the C++ scanner exists; device only without it
-    # and past the measured threshold
-    import jpeg_tpu.entropy as E
-    if E._get_native() is not None:
-        assert DS.scan_mode(1 << 30) == "host"
-    monkeypatch.setattr(E, "_native", None)
-    monkeypatch.setattr(E, "_native_checked", True)
-    assert DS.scan_mode(DS.PY_SCAN_DEVICE_MIN_BYTES) == "device"
-    assert DS.scan_mode(100) == "host"
+@pytest.mark.parametrize("value,mode", [
+    ("device", "device"), ("DEVICE", "device"), ("host", "host"),
+    ("", "host"), (None, "host"),
+])
+def test_scan_mode_policy(monkeypatch, value, mode):
+    """The host scanner is the default; only JPEG_TPU_SCAN=device selects
+    the device scan."""
+    if value is None:
+        monkeypatch.delenv("JPEG_TPU_SCAN", raising=False)
+    else:
+        monkeypatch.setenv("JPEG_TPU_SCAN", value)
+    assert DS.scan_mode() == mode
 
 
 def test_foreign_decode_deferred_through_decompress_many(monkeypatch):
     """The foreign path returns a deferred resolver (ok-flag sync moved to
     pull time); decompress_many must resolve it in its puller and produce
     images identical to the host-scan path, in order."""
-    monkeypatch.setenv("JPEG_TPU_DEVICE_DECODE", "1")
-    monkeypatch.setenv("JPEG_TPU_PALLAS", "interpret")
     from jpeg_tpu import (Configuration, QuantizationMethod, compress_ycbcr,
                           decompress_many)
     rng = np.random.default_rng(8)
@@ -314,7 +246,43 @@ def test_foreign_decode_deferred_through_decompress_many(monkeypatch):
     blobs = [compress_ycbcr(im, cfg) for im in imgs]
     base = decompress_many(blobs)
     monkeypatch.setenv("JPEG_TPU_SCAN", "device")
-    DS._rung_cache.pop(64, None)
     got = decompress_many(blobs)
     for g, b in zip(got, base):
         assert np.array_equal(g, b)
+
+
+@pytest.mark.parametrize("entry", ["decompress_to_ycbcr", "decompress_many",
+                                   "scan_offsets"])
+def test_failed_device_scan_on_a_valid_stream_fails_loudly(monkeypatch,
+                                                           entry):
+    """An ok flag that fails on a stream the host scanner accepts means the
+    device scan is broken: it raises, and no host-scan decode stands in."""
+    import jax.numpy as jnp
+    from jpeg_tpu import (Configuration, QuantizationMethod, api,
+                          compress_ycbcr, decompress_many,
+                          decompress_to_ycbcr)
+    real_fn = api._decode3_foreign_fn
+    real_scan = DS.scan_offsets_device
+
+    def broken_fn(key, dt):
+        f = real_fn(key, dt)
+        return lambda s, e: (f(s, e)[0], jnp.bool_(False))
+
+    monkeypatch.setattr(api, "_decode3_foreign_fn", broken_fn)
+    monkeypatch.setattr(DS, "scan_offsets_device",
+                        lambda *a: (real_scan(*a)[0], False))
+    monkeypatch.setenv("JPEG_TPU_SCAN", "device")
+    rng = np.random.default_rng(9)
+    cfg = Configuration(width=40, height=24, block_size=2, dct_size=8,
+                        quantization=QuantizationMethod("qtable"))
+    blob = compress_ycbcr(rng.integers(0, 256, (24, 40, 3), np.uint8), cfg)
+    data = NC.encode_levels(_rand_levels(rng, 12, 64))
+    run = {"decompress_to_ycbcr": lambda: decompress_to_ycbcr(blob),
+           "decompress_many": lambda: decompress_many([blob, blob]),
+           "scan_offsets": lambda: entropy.scan_offsets(data, 12, 64)}[entry]
+    with pytest.raises(RuntimeError, match="device boundary scan"):
+        run()
+    # a malformed stream still gets the host scanner's canonical error
+    with pytest.raises(BadStreamError):
+        entropy.scan_offsets(data[:-1], 12, 64)
+

@@ -3,16 +3,16 @@
 The reference's DFT mode keeps only the real part of the coefficients once
 the RLE step casts complex->int (reference basis_change.py:20-25,
 run_length_encoding.py:16-17).  real(fft2) of a real block is linear, so the
-fast path uses Re(F kron F) with the zigzag row permutation — the same MXU
-matmul shape as the DCT path, shared with the Pallas kernels.
+fast path uses Re(F kron F) with the zigzag row permutation — the same
+matmul shape as the DCT path.
 """
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from jpeg_tpu.config import Configuration, QuantizationMethod
 from jpeg_tpu.ops import band as band_ops
-from jpeg_tpu.ops import pallas_kernels as PK
 from jpeg_tpu.ops import quantize as Q
 from jpeg_tpu.ops import transform as T
 
@@ -54,22 +54,23 @@ def test_dft_roundtrip_is_symmetrization():
     QuantizationMethod("none"),
     QuantizationMethod("divide", divisor=100),
 ], ids=lambda m: m.name)
-def test_dft_pallas_kernel_matches_xla(method):
-    d, L = 8, 64
-    n = PK.TILE + 5
-    blocks = RNG.integers(0, 256, (n, d, d)).astype(np.float32)
-    coeffs = T.dft2_real_zigzag(jnp.asarray(blocks, jnp.float32), d)
-    want = np.asarray(Q.quantize(coeffs, method, d)).astype(np.int32)
-
-    mul = np.ones(L)
-    div = (float(method.divisor) * np.ones(L) if method.name == "divide"
-           else np.ones(L))
-    got = PK.encode_blocks(jnp.asarray(blocks.reshape(n, L)),
-                           jnp.asarray(T.dft_encode_operator(d).T,
-                                       jnp.float32),
-                           jnp.asarray(mul), jnp.asarray(div),
-                           jnp.asarray(np.ones(L)), interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), want)
+def test_dft_f32_blocks_match_f64(method):
+    """The production f32 DFT operator product + quantizer (x64 off) against
+    the f64 product, equal except +-1 at provable round ties."""
+    from jpeg_tpu.utils.parity import EPS32, assert_tie_equal
+    d, L, n = 8, 64, 1029
+    blocks = RNG.integers(0, 256, (n, L)).astype(np.float64)
+    op = T.dft_encode_operator(d)
+    div = float(method.divisor) if method.name == "divide" else 1.0
+    q = blocks @ op.T / div
+    want = np.round(q).astype(np.int32)
+    bound = (L + 16) * EPS32 * (np.abs(blocks) @ np.abs(op.T)) / div
+    ties = np.abs(q - np.floor(q) - 0.5) <= bound
+    with jax.enable_x64(False):
+        coeffs = T.dft2_real_zigzag(
+            jnp.asarray(blocks.reshape(n, d, d), jnp.float32), d)
+        got = np.asarray(Q.quantize(coeffs, method, d)).astype(np.int32)
+    assert_tie_equal(got, want, ties, method.name)
 
 
 def test_dft_f32_band_roundtrip():

@@ -1,4 +1,4 @@
-"""REAL 2-process multihost execution (VERDICT r1 item 3).
+"""REAL 2-process multihost execution.
 
 Spawns two coordinated processes (jax.distributed over localhost DCN, 4
 virtual CPU devices each = 8 global) and asserts the distributed row-band

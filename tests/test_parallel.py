@@ -140,7 +140,7 @@ def test_device_entropy_sharded_stitch():
     cfg = _cfg(40, 8 * 2 * 8, block_size=2)
     mesh = parallel.make_mesh(8)
     plane = RNG.integers(0, 256, (cfg.height, cfg.width), dtype=np.int32)
-    got = parallel.compress_plane_device_entropy(plane, cfg, mesh)
+    got = parallel.compress_plane(plane, cfg, mesh, device_entropy=True)
     want = entropy.encode_levels(np.asarray(encode_band_levels(plane, cfg)))
     assert got == want
 
@@ -151,7 +151,7 @@ def test_device_entropy_sharded_stitch_uneven():
     cfg = _cfg(24, 5 * 2 * 8, block_size=2)
     mesh = parallel.make_mesh(8)
     plane = RNG.integers(0, 256, (cfg.height, cfg.width), dtype=np.int32)
-    got = parallel.compress_plane_device_entropy(plane, cfg, mesh)
+    got = parallel.compress_plane(plane, cfg, mesh, device_entropy=True)
     want = entropy.encode_levels(np.asarray(encode_band_levels(plane, cfg)))
     assert got == want
 
@@ -207,7 +207,7 @@ def test_device_entropy_plane_rejects_overrange():
     mesh = parallel.make_mesh(8)
     plane = np.full((48, 48), 200, dtype=np.int32)
     with pytest.raises(BadRleCodeError):
-        parallel.compress_plane_device_entropy(plane, cfg, mesh)
+        parallel.compress_plane(plane, cfg, mesh, device_entropy=True)
 
 
 def test_multihost_indivisible_height():
@@ -262,12 +262,13 @@ def test_fuzz_sharded_equals_serial(trial):
     plane = rng.integers(0, 256, (h, w)).astype(np.int64)
     serial = entropy.encode_levels(np.asarray(encode_band_levels(plane, cfg)))
     assert parallel.compress_plane(plane, cfg, mesh) == serial
-    assert parallel.compress_plane_device_entropy(plane, cfg, mesh) == serial
+    assert parallel.compress_plane(plane, cfg, mesh,
+                                   device_entropy=True) == serial
 
 
 def test_decompress_plane_matches_decompress_band():
     """decompress_plane (sharded decode of one plane) == decompress_band,
-    both the device-bit-parse and host-entropy variants (VERDICT r1 #4)."""
+    both the device-bit-parse and host-entropy variants."""
     from jpeg_tpu import api
     cfg = _cfg(96, 8 * 2 * 8, block_size=2)
     mesh = parallel.make_mesh(8)
@@ -281,8 +282,9 @@ def test_decompress_plane_matches_decompress_band():
 
 
 def test_decompress_plane_uneven_blocks():
-    # 15 block-rows over 8 shards: fit_spec falls back to replication for
-    # levels while the row-band decode still matches bit-exactly.
+    # 15 block-rows over 8 shards: the block count pads to a multiple of 8
+    # (dummy starts decode as all-zero blocks, dropped before the IDCT)
+    # and the row-band decode still matches bit-exactly.
     from jpeg_tpu import api
     cfg = _cfg(24, 5 * 2 * 8, block_size=2)
     mesh = parallel.make_mesh(8)
@@ -302,8 +304,8 @@ def test_decompress_plane_fullhd():
     y, x = np.mgrid[0:1080, 0:1920]
     plane = np.clip(128 + 80 * np.sin(x / 37.0) * np.cos(y / 23.0),
                     0, 255).astype(np.int32)
-    stream = parallel.compress_plane_device_entropy(plane, cfg, mesh,
-                                                    dtype=np.float32)
+    stream = parallel.compress_plane(plane, cfg, mesh, dtype=np.float32,
+                                    device_entropy=True)
     from jpeg_tpu import api
     want = api.decompress_band(stream, cfg, dtype=np.float32)
     got = parallel.decompress_plane(stream, cfg, mesh, dtype=np.float32,
@@ -314,7 +316,7 @@ def test_decompress_plane_fullhd():
 def test_shard_stream_slices_addressable_bytes():
     """The batch-decode stream upload is SHARDED: each device addresses only
     ~total/ndev bytes (pow2-bucketed), never the whole replicated batch
-    stream (VERDICT r2 weak #6).  Byte-aligned blocks (reference
+    stream.  Byte-aligned blocks (reference
     rle_byte_stream.py:54-56) make the contiguous flat-block split exact."""
     from jpeg_tpu.parallel.sharded import _shard_stream_slices
     from jpeg_tpu.entropy import numpy_codec as NC
@@ -330,7 +332,7 @@ def test_shard_stream_slices_addressable_bytes():
         scans.append(entropy.scan_offsets(s, nb, L))
     total = sum(len(s) for s in streams)
     ndev = 8
-    slices, local, slens = _shard_stream_slices(streams, scans, ndev)
+    slices, local = _shard_stream_slices(streams, scans, ndev)
     assert slices.shape[0] == ndev and local.shape == (ndev, 6 * nb // ndev)
     # each shard addresses far less than the whole stream
     assert slices.shape[1] * 4 <= total
@@ -347,8 +349,8 @@ def test_shard_stream_slices_addressable_bytes():
             blk = buf[gstarts[g]:ends[g]]
             lo = local[k, j]
             assert slices[k, lo:lo + len(blk)].tobytes() == blk
-        # true slice length covers the shard's last real block
-        assert slens[k, 0] >= local[k, -1]
+        # the slice width covers the shard's last block
+        assert local[k, -1] < slices.shape[1]
 
 
 def test_shard_stream_slices_uneven_blocks():
@@ -363,7 +365,7 @@ def test_shard_stream_slices_uneven_blocks():
         s = entropy.encode_levels(lv)
         streams.append(s)
         scans.append(entropy.scan_offsets(s, nb, L))
-    slices, local, slens = _shard_stream_slices(streams, scans, 8)
+    slices, local = _shard_stream_slices(streams, scans, 8)
     assert local.shape == (8, 2)             # 15 -> 16 blocks, 2 per shard
     # the dummy block's slice byte is 0x00 = immediate EOB
     k, j = 7, 1
@@ -381,3 +383,52 @@ def test_decompress_plane_distributed_single_process():
     mesh = parallel.make_mesh(8)
     got = multihost.decompress_plane_distributed(stream, cfg, mesh)
     np.testing.assert_array_equal(got, api.decompress_band(stream, cfg))
+
+
+@pytest.mark.parametrize("block_rows", [8, 5])
+def test_plane_paths_split_over_every_device(block_rows):
+    """The plane's levels and decoded rows land split over all 8 devices,
+    also when the block count is not a multiple of 8 (it pads with zero
+    blocks, dropped again before the stitch and the IDCT)."""
+    from chip_smoke import split_over
+    from jpeg_tpu import api
+    from jpeg_tpu.ops import band as band_ops
+    from jpeg_tpu.parallel import sharded
+    cfg = _cfg(24, block_rows * 2 * 8, block_size=2)
+    mesh = parallel.make_mesh(8)
+    plane = RNG.integers(0, 256, (cfg.height, cfg.width), dtype=np.int32)
+    f32 = np.dtype(np.float32)
+    lv = sharded._plane_encode_fn(band_ops.config_key(cfg), f32.name, mesh,
+                                  plane.shape)(plane)
+    assert lv.shape[0] == 16 and split_over(lv) == 8
+    assert not np.asarray(lv)[cfg.num_blocks:].any()
+    stream = parallel.compress_plane(plane, cfg, mesh, dtype=f32,
+                                     device_entropy=True)
+    rows = sharded._decode_plane_device(stream, cfg, mesh, f32)
+    assert split_over(rows) == 8
+    np.testing.assert_array_equal(
+        np.asarray(rows), api.decompress_band(stream, cfg, dtype=f32))
+
+
+def test_batch_paths_split_over_every_device():
+    """Batch coefficient levels and device-decoded planes split over the
+    mesh's band axis."""
+    from chip_smoke import split_over
+    from jpeg_tpu.ops import band as band_ops
+    from jpeg_tpu.parallel import sharded
+    cfg = _cfg(32, 64, block_size=2)
+    mesh = parallel.make_mesh(8)
+    imgs = RNG.integers(0, 256, (2, 64, 32, 3), dtype=np.uint8)
+    bands = imgs.transpose(0, 3, 1, 2).reshape(6, 64, 32)
+    lv = sharded._batch_encode_fn(band_ops.config_key(cfg), "float64", mesh,
+                                  bands.shape, with_stats=False)(bands)
+    assert split_over(lv) == 8
+    blobs = parallel.compress_batch(imgs, cfg, mesh)
+    from jpeg_tpu.container import read_data
+    streams = [s for _, d in map(read_data, blobs) for s in (d.y, d.cb, d.cr)]
+    planes = sharded._decompress_batch_device(streams, cfg, mesh, 2, None)
+    assert split_over(planes) == 8
+    np.testing.assert_array_equal(
+        np.asarray(planes).transpose(0, 2, 3, 1),
+        parallel.decompress_batch(blobs, mesh, device_entropy=False))
+
